@@ -1,4 +1,4 @@
-"""Microbenchmark patch-extraction strategies on the real TPU."""
+"""Microbenchmark patch-extraction strategies on the default device."""
 
 import sys
 import time
@@ -36,9 +36,9 @@ def timeit(name, fn, *args):
         c, _ = jax.lax.scan(body, jnp.float32(0.0), None, length=R)
         return c
 
-    np.asarray(loop(*args))
+    jax.block_until_ready(loop(*args))
     t0 = time.time()
-    np.asarray(loop(*args))
+    jax.block_until_ready(loop(*args))
     dt = (time.time() - t0) / R * 1e3
     log(f"{name:34s} {dt:8.3f} ms")
     return dt

@@ -28,8 +28,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from pslam_tpu.geometry import Camera, project_stereo, se3_exp, transform_points
-    from pslam_tpu.parallel.sharded_ba import (
+    from pslam.geometry import Camera, project_stereo, se3_exp, transform_points
+    from pslam.parallel.sharded_ba import (
         make_ba_mesh,
         sharded_local_bundle_adjustment,
     )
@@ -43,7 +43,7 @@ def main():
     cam = Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0)
     rng = np.random.default_rng(0)
     C, P, E, n_free = 64, 8192, 65536, 32
-    from pslam_tpu.solver.local_ba import BAProblem
+    from pslam.solver.local_ba import BAProblem
 
     X = rng.uniform([-3, -2, 1], [3, 2, 8], (P, 3)).astype(np.float32)
     T_cw = np.stack(
@@ -100,9 +100,9 @@ def main():
         print(f"BA {nd} dev: {dt*1e3:8.1f} ms  (edges/dev {E//nd})")
 
     # Essential graph: K=192 vertices, ~1.5K edges.
-    from pslam_tpu.geometry.lie import Sim3, sim3_compose, sim3_exp as s3exp, sim3_inverse
-    from pslam_tpu.parallel.sharded_graph import optimize_essential_graph_sharded
-    from pslam_tpu.solver.sim3_graph import PoseGraphProblem
+    from pslam.geometry.lie import Sim3, sim3_compose, sim3_exp as s3exp, sim3_inverse
+    from pslam.parallel.sharded_graph import optimize_essential_graph_sharded
+    from pslam.solver.sim3_graph import PoseGraphProblem
 
     K = 192
     gt = []
@@ -184,7 +184,7 @@ def main():
             "virtual devices time-share cores; per-device work (edges/device)\n"
             "still halves per doubling exactly, and the collective structure\n"
             "(one psum of the reduced camera system per iteration) is what\n"
-            "rides ICI on real multi-chip hardware.\n\n"
+            "rides the interconnect of real multi-device hardware.\n\n"
             f"## Edge-sharded BA ({C} cams / {P} pts / {E} edges, 6 LM iters)\n\n"
             "| devices | ms/solve | speedup | efficiency | edges/device |\n"
             "|---|---|---|---|---|\n"

@@ -1,14 +1,14 @@
-"""Time the sharded solvers on the REAL chip with a 1-device mesh.
+"""Time the sharded solvers on the device with a 1-device mesh.
 
 VERDICT r4 item 6: the edge-sharded solvers were only ever equivalence-
 tested on the virtual 8-device CPU mesh; this flushes device-specific
-lowering issues (psum_scatter layouts on ICI) and measures the sharding
+lowering issues (psum_scatter layouts) and measures the sharding
 machinery's single-device overhead vs the plain path. Done-gate:
 overhead < 10% or explained.
 
 Shapes mirror bench.py's ladder-calibrated typical local BA
 (48 cams / 2048 pts / 8192 edges) + 512 LIL edges + a 128-KF / 256-edge
-Sim3 essential graph. Writes SHARDED_r05.json at the repo root.
+Sim3 essential graph. Prints one JSON line of results.
 """
 
 from __future__ import annotations
@@ -44,9 +44,9 @@ def _scan_time(fn, *args, R=6):
         c, _ = jax.lax.scan(body, jnp.float32(0.0), None, length=R)
         return c
 
-    np.asarray(loop(*args))
+    jax.block_until_ready(loop(*args))
     t0 = time.time()
-    np.asarray(loop(*args))
+    jax.block_until_ready(loop(*args))
     return (time.time() - t0) / R
 
 
@@ -54,18 +54,18 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pslam_tpu.utils.backend import enable_compile_cache
+    from pslam.utils.backend import enable_compile_cache
 
     enable_compile_cache()
 
-    from pslam_tpu.geometry import project_stereo, se3_exp, transform_points
-    from pslam_tpu.parallel import make_ba_mesh, sharded_local_bundle_adjustment
-    from pslam_tpu.parallel.sharded_ba import sharded_local_bundle_adjustment_lil
-    from pslam_tpu.parallel.sharded_graph import optimize_essential_graph_sharded
-    from pslam_tpu.solver import local_bundle_adjustment
-    from pslam_tpu.solver.ba_lil import LILBAEdges, local_bundle_adjustment_lil
-    from pslam_tpu.solver.sim3_graph import optimize_essential_graph
-    from pslam_tpu.utils.config import SlamConfig
+    from pslam.geometry import project_stereo, se3_exp, transform_points
+    from pslam.parallel import make_ba_mesh, sharded_local_bundle_adjustment
+    from pslam.parallel.sharded_ba import sharded_local_bundle_adjustment_lil
+    from pslam.parallel.sharded_graph import optimize_essential_graph_sharded
+    from pslam.solver import local_bundle_adjustment
+    from pslam.solver.ba_lil import LILBAEdges, local_bundle_adjustment_lil
+    from pslam.solver.sim3_graph import optimize_essential_graph
+    from pslam.utils.config import SlamConfig
 
     cfg = SlamConfig()
     cam, caps = cfg.camera, cfg.caps
@@ -75,7 +75,7 @@ def main():
     results = {"device": str(dev[0]), "mesh_size": len(dev)}
 
     # ---- local BA problem (bench.py's typical shape) ---------------------
-    from pslam_tpu.solver.local_ba import BAProblem
+    from pslam.solver.local_ba import BAProblem
 
     rng = np.random.default_rng(0)
     C, Pn, E, n_free = caps.ba_cams, 2048, 8192, caps.ba_free
@@ -147,8 +147,8 @@ def main():
     )
 
     # ---- essential graph -------------------------------------------------
-    from pslam_tpu.geometry.lie import Sim3
-    from pslam_tpu.solver.sim3_graph import PoseGraphProblem
+    from pslam.geometry.lie import Sim3
+    from pslam.solver.sim3_graph import PoseGraphProblem
 
     K, Eg = 128, 256
     angles = 2 * np.pi * np.arange(K) / K
@@ -180,9 +180,6 @@ def main():
         overhead_pct=round(100 * (t_shard_g / t_plain_g - 1), 1),
     )
 
-    out = os.path.join(os.path.dirname(__file__), "..", "SHARDED_r05.json")
-    with open(out, "w") as f:
-        json.dump(results, f, indent=1)
     print(json.dumps(results))
 
 

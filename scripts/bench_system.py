@@ -1,5 +1,5 @@
 """Deployed-system benchmark: drive SlamSystem.track_rgbd end-to-end on the
-real TPU (VERDICT r3 item 2 — the scan bench measures the device program;
+default device (VERDICT r3 item 2 — the scan bench measures the device program;
 this measures what a user actually gets, host orchestration included).
 
 Usage: python scripts/bench_system.py [n_frames]
@@ -21,13 +21,13 @@ def main(n_frames: int = 100):
     sys.path.insert(0, "/root/repo")
     import jax
 
-    from pslam_tpu.utils.backend import enable_compile_cache
+    from pslam.utils.backend import enable_compile_cache
     enable_compile_cache()
 
-    from pslam_tpu.io.synthetic import render_sequence
-    from pslam_tpu.pipeline.system import SlamSystem
-    from pslam_tpu.utils.config import SlamConfig
-    from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+    from pslam.io.synthetic import render_sequence
+    from pslam.pipeline.system import SlamSystem
+    from pslam.utils.config import SlamConfig
+    from pslam.utils.metrics import ate_rmse, trajectory_positions
 
     cfg = SlamConfig()
     log("device:", jax.devices()[0])

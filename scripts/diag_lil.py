@@ -38,7 +38,7 @@ def main():
     variant = sys.argv[1]
     n_frames = int(sys.argv[2]) if len(sys.argv) > 2 else 160
 
-    from pslam_tpu.solver import ba_lil, lil, pose_opt
+    from pslam.solver import ba_lil, lil, pose_opt
 
     kw = dict(use_lines=True, use_lils=True, use_bow=False,
               use_loop_closing=False)
@@ -59,14 +59,14 @@ def main():
     else:
         raise SystemExit(f"unknown variant {variant!r}")
 
-    from pslam_tpu.io.synthetic import (
+    from pslam.io.synthetic import (
         ClosedRoom,
         loop_trajectory,
         render_sequence,
     )
-    from pslam_tpu.pipeline.system import SlamSystem
-    from pslam_tpu.utils.config import SlamConfig
-    from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+    from pslam.pipeline.system import SlamSystem
+    from pslam.utils.config import SlamConfig
+    from pslam.utils.metrics import ate_rmse, trajectory_positions
 
     cfg = SlamConfig(**kw)
     poses = loop_trajectory(n_frames, loops=1.0)

@@ -2,7 +2,7 @@
 
 Builds baseline/orb_lsd_baseline.cpp (g++ -O3 -march=native, the reference's
 own flags, CMakeLists.txt:10-11), renders the same synthetic sequence the
-TPU bench uses, and times the reference per-frame hot path (ORB 1000/8
+device bench uses, and times the reference per-frame hot path (ORB 1000/8
 levels + LSD/LBD lines + Hamming matching — see the .cpp header for the
 file:line mapping and why this UNDERSTATES the full reference frame cost).
 
@@ -61,8 +61,8 @@ def write_pgm(path: str, img):
 def measure(n_frames: int) -> dict | None:
     if not build():
         return None
-    from pslam_tpu.io.synthetic import render_sequence
-    from pslam_tpu.utils.config import SlamConfig
+    from pslam.io.synthetic import render_sequence
+    from pslam.utils.config import SlamConfig
 
     cfg = SlamConfig()
     log(f"rendering {n_frames} frames (same scene/trajectory as bench.py)...")

@@ -1,4 +1,4 @@
-"""Profile the keyframe-rate backend on the real TPU: local-BA internals
+"""Profile the keyframe-rate backend on the default device: local-BA internals
 (edge terms / assembly / Schur solve) and epipolar triangulation."""
 
 import sys
@@ -35,9 +35,9 @@ def timeit(name, fn, *args):
         c, _ = jax.lax.scan(body, jnp.float32(0.0), None, length=R)
         return c
 
-    np.asarray(loop(*args))
+    jax.block_until_ready(loop(*args))
     t0 = time.time()
-    np.asarray(loop(*args))
+    jax.block_until_ready(loop(*args))
     dt = (time.time() - t0) / R * 1e3
     log(f"{name:38s} {dt:8.3f} ms")
     return dt
@@ -47,15 +47,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pslam_tpu.geometry import project_stereo, se3_exp, transform_points
-    from pslam_tpu.solver.local_ba import (
+    from pslam.geometry import project_stereo, se3_exp, transform_points
+    from pslam.solver.local_ba import (
         BAProblem,
         _assemble,
         _edge_terms,
         _solve_schur,
         local_bundle_adjustment,
     )
-    from pslam_tpu.utils.config import SlamConfig
+    from pslam.utils.config import SlamConfig
 
     cfg = SlamConfig()
     cam = cfg.camera
@@ -127,7 +127,7 @@ def main():
     log(f"full BA (5+10 LM): {(time.time()-t0)/3*1e3:.2f} ms")
 
     # --- triangulation ----------------------------------------------------
-    from pslam_tpu.ops.triangulate import KFView, epipolar_triangulate
+    from pslam.ops.triangulate import KFView, epipolar_triangulate
 
     N = cfg.orb.capacity
 
@@ -155,7 +155,7 @@ def main():
     vals = jnp.asarray(rng.normal(size=(N, 3)).astype(np.float32))
     timeit("bare gather (1000 rows of 3)", lambda v, jj: v[jj], vals, j)
 
-    from pslam_tpu.ops.match import hamming_matrix, mutual_nn_match
+    from pslam.ops.match import hamming_matrix, mutual_nn_match
 
     timeit(
         "hamming+mutualNN (1000x1000)",

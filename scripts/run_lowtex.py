@@ -26,9 +26,9 @@ import numpy as np
 
 
 def run_one(name, kw, grays, depths, gt_pos, n_frames):
-    from pslam_tpu.pipeline.system import SlamSystem
-    from pslam_tpu.utils.config import SlamConfig
-    from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+    from pslam.pipeline.system import SlamSystem
+    from pslam.utils.config import SlamConfig
+    from pslam.utils.metrics import ate_rmse, trajectory_positions
 
     cfg = SlamConfig(**kw)
     s = SlamSystem(cfg)
@@ -61,13 +61,13 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from pslam_tpu.io.synthetic import (
+    from pslam.io.synthetic import (
         LowTextureRoom,
         loop_trajectory,
         render_sequence,
     )
-    from pslam_tpu.utils.config import SlamConfig
-    from pslam_tpu.utils.metrics import trajectory_positions
+    from pslam.utils.config import SlamConfig
+    from pslam.utils.metrics import trajectory_positions
 
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     n_frames = int(args[0]) if args else 120

@@ -8,7 +8,7 @@ differently-textured scenes (the same projective-texture renderer the
 integration tests use — the closest thing to natural imagery available in
 this environment), trains the k^L tree with the k-means++/k-medians build
 (TemplatedVocabulary::create semantics), and writes
-pslam_tpu/data/vocab_orb.npz, which default_vocabulary() then prefers.
+pslam/data/vocab_orb.npz, which default_vocabulary() then prefers.
 
 Usage: python scripts/train_vocab.py [k] [levels]
 """
@@ -27,15 +27,15 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from pslam_tpu.io.synthetic import (
+    from pslam.io.synthetic import (
         BoxRoom,
         ClosedRoom,
         loop_trajectory,
         render_sequence,
     )
-    from pslam_tpu.ops.bow import save_vocabulary, train_vocabulary
-    from pslam_tpu.ops.orb import extract_orb
-    from pslam_tpu.utils.config import SlamConfig
+    from pslam.ops.bow import save_vocabulary, train_vocabulary
+    from pslam.ops.orb import extract_orb
+    from pslam.utils.config import SlamConfig
 
     k = int(sys.argv[1]) if len(sys.argv) > 1 else 10
     levels = int(sys.argv[2]) if len(sys.argv) > 2 else 4
@@ -71,7 +71,7 @@ def main():
     vocab = train_vocabulary(D, k=k, levels=levels, seed=0)
     print(f"trained in {time.time()-t0:.0f}s; W={vocab.n_words}")
 
-    out_dir = os.path.join(os.path.dirname(__file__), "..", "pslam_tpu", "data")
+    out_dir = os.path.join(os.path.dirname(__file__), "..", "pslam", "data")
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, "vocab_orb.npz")
     save_vocabulary(vocab, out)

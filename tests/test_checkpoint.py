@@ -4,11 +4,11 @@ SaveMap/LoadMap are TODO stubs, System.h:117-119 — implemented here)."""
 import numpy as np
 import pytest
 
-from pslam_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from pslam_tpu.io.synthetic import render_sequence
-from pslam_tpu.ops.orb import OrbConfig
-from pslam_tpu.pipeline.system import SlamSystem, TrackState
-from pslam_tpu.utils.config import Capacities, SlamConfig
+from pslam.io.checkpoint import load_checkpoint, save_checkpoint
+from pslam.io.synthetic import render_sequence
+from pslam.ops.orb import OrbConfig
+from pslam.pipeline.system import SlamSystem, TrackState
+from pslam.utils.config import Capacities, SlamConfig
 
 
 def _cfg():

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation
 
-from pslam_tpu import geometry as geo
+from pslam import geometry as geo
 
 
 def rng(seed=0):

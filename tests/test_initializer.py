@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pslam_tpu.solver.initializer import initialize_two_view
+from pslam.solver.initializer import initialize_two_view
 
 FX, FY, CX, CY = 500.0, 505.0, 320.0, 240.0
 

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import pslam_tpu.geometry as geo
-from pslam_tpu.geometry import Camera, project, se3_exp, transform_points
-from pslam_tpu.solver.ba_lil import LILBAEdges, local_bundle_adjustment_lil
-from pslam_tpu.solver.lil import LILPoseObs, lil_residual_jac
-from pslam_tpu.solver.local_ba import BAProblem
-from pslam_tpu.solver.pose_opt import PoseObs, pose_optimization
+import pslam.geometry as geo
+from pslam.geometry import Camera, project, se3_exp, transform_points
+from pslam.solver.ba_lil import LILBAEdges, local_bundle_adjustment_lil
+from pslam.solver.lil import LILPoseObs, lil_residual_jac
+from pslam.solver.local_ba import BAProblem
+from pslam.solver.pose_opt import PoseObs, pose_optimization
 
 CAM = Camera(fx=400.0, fy=400.0, cx=320.0, cy=240.0, bf=40.0)
 

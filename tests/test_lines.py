@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pslam_tpu.geometry import Camera
-from pslam_tpu.ops.fans import build_lils
-from pslam_tpu.ops.line3d import fit_lines_3d
-from pslam_tpu.ops.lines import LineConfig, detect_lines
+from pslam.geometry import Camera
+from pslam.ops.fans import build_lils
+from pslam.ops.line3d import fit_lines_3d
+from pslam.ops.lines import LineConfig, detect_lines
 
 H, W = 240, 320
 CAM = Camera(fx=400.0, fy=400.0, cx=160.0, cy=120.0, bf=32.0, width=W, height=H)
@@ -204,8 +204,8 @@ class TestBuildLils:
 class TestLineDescriptors:
     def test_matching_across_shift(self):
         """Descriptors of the same edges in a translated image must match."""
-        from pslam_tpu.ops.lbd import line_descriptors
-        from pslam_tpu.ops.line_match import match_lines_f2f
+        from pslam.ops.lbd import line_descriptors
+        from pslam.ops.line_match import match_lines_f2f
 
         edges = [(0.05, 1.0, 140.0, 120.0), (1.0, -0.45, 200.0, 80.0),
                  (1.0, 0.8, 260.0, -50.0)]
@@ -241,7 +241,7 @@ class TestLineDescriptors:
 
     def test_descriptor_orientation_stable(self):
         """The canonical endpoint ordering makes descriptors flip-invariant."""
-        from pslam_tpu.ops.lbd import line_descriptors
+        from pslam.ops.lbd import line_descriptors
 
         img = _step_image([(0.3, 1.0, 150.0, 100.0)])
         lf = detect_lines(jnp.asarray(img), LineConfig())

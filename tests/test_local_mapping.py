@@ -9,9 +9,9 @@ Behavioral spec: reference src/LocalMapping.cc:275-520 (CreateNewMapPoints),
 import numpy as np
 import pytest
 
-from pslam_tpu.models.map_state import MapState
-from pslam_tpu.pipeline import line_mapping, local_mapping
-from pslam_tpu.utils.config import SlamConfig
+from pslam.models.map_state import MapState
+from pslam.pipeline import line_mapping, local_mapping
+from pslam.utils.config import SlamConfig
 
 CFG = SlamConfig(use_lines=False, use_bow=False, use_loop_closing=False)
 RNG = np.random.default_rng(7)

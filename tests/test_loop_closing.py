@@ -16,11 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pslam_tpu.geometry import se3_exp
-from pslam_tpu.geometry.camera import project
-from pslam_tpu.pipeline.system import SlamSystem
-from pslam_tpu.utils.config import Capacities, SlamConfig
-from pslam_tpu.ops.orb import OrbConfig
+from pslam.geometry import se3_exp
+from pslam.geometry.camera import project
+from pslam.pipeline.system import SlamSystem
+from pslam.utils.config import Capacities, SlamConfig
+from pslam.ops.orb import OrbConfig
 
 
 def _make_cfg():
@@ -181,7 +181,7 @@ def test_loop_detected_and_corrected(drifted_world):
 def test_no_loop_on_distinct_views(drifted_world):
     """KFs in the middle segment must not trigger loop closure."""
     cfg, slam, *_ = drifted_world
-    from pslam_tpu.pipeline.loop_closing import LoopCloser
+    from pslam.pipeline.loop_closing import LoopCloser
 
     lc2 = LoopCloser(slam)
     assert lc2.detect_loop(4) == [] or lc2.compute_sim3(4, lc2.detect_loop(4)) is None

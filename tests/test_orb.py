@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pslam_tpu.io.synthetic import checker_texture
-from pslam_tpu.ops import (
+from pslam.io.synthetic import checker_texture
+from pslam.ops import (
     OrbConfig,
     extract_orb,
     fast_score,
@@ -15,7 +15,7 @@ from pslam_tpu.ops import (
     mutual_nn_match,
     rotation_consistency_mask,
 )
-from pslam_tpu.ops.match import window_mask
+from pslam.ops.match import window_mask
 
 
 def make_test_image(seed=0, h=480, w=640):

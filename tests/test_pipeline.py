@@ -4,10 +4,10 @@ with exact ground truth (SURVEY.md §4 / BASELINE config 1 analogue)."""
 import numpy as np
 import pytest
 
-from pslam_tpu.io.synthetic import render_sequence
-from pslam_tpu.pipeline.system import SlamSystem, TrackState
-from pslam_tpu.utils.config import SlamConfig
-from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+from pslam.io.synthetic import render_sequence
+from pslam.pipeline.system import SlamSystem, TrackState
+from pslam.utils.config import SlamConfig
+from pslam.utils.metrics import ate_rmse, trajectory_positions
 
 
 @pytest.fixture(scope="module")
@@ -106,8 +106,8 @@ def test_ref_kf_fallback_recovers_large_jump():
     event (VERDICT r2 weak #10: the branch was untested)."""
     import numpy as np
 
-    from pslam_tpu.io.synthetic import BoxRoom
-    from pslam_tpu.pipeline.system import SlamSystem, TrackState
+    from pslam.io.synthetic import BoxRoom
+    from pslam.pipeline.system import SlamSystem, TrackState
 
     cfg = SlamConfig(use_lines=False, use_bow=False, use_loop_closing=False)
     cam = cfg.camera

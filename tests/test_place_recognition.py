@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pslam_tpu.geometry import se3_exp
-from pslam_tpu.geometry.camera import Camera, project
-from pslam_tpu.ops import bow as bow_ops
-from pslam_tpu.solver.horn import horn_align, se3_ransac_3d3d, sim3_ransac
+from pslam.geometry import se3_exp
+from pslam.geometry.camera import Camera, project
+from pslam.ops import bow as bow_ops
+from pslam.solver.horn import horn_align, se3_ransac_3d3d, sim3_ransac
 
 
 @pytest.fixture(scope="module")
@@ -78,9 +78,9 @@ class TestBow:
 
 class TestKeyFrameDatabase:
     def test_reloc_candidates(self, vocab):
-        from pslam_tpu.models.map_state import MapState
-        from pslam_tpu.pipeline.keyframe_db import KeyFrameDatabase
-        from pslam_tpu.utils.config import SlamConfig
+        from pslam.models.map_state import MapState
+        from pslam.pipeline.keyframe_db import KeyFrameDatabase
+        from pslam.utils.config import SlamConfig
 
         cfg = SlamConfig()
         ms = MapState(cfg)
@@ -202,7 +202,7 @@ class TestRealVocabularyPR:
     def test_packaged_vocab_loads(self):
         import os
 
-        from pslam_tpu.ops.bow import PACKAGED_VOCAB, default_vocabulary
+        from pslam.ops.bow import PACKAGED_VOCAB, default_vocabulary
 
         assert os.path.exists(PACKAGED_VOCAB)
         vocab = default_vocabulary(k=10, levels=4)
@@ -212,12 +212,12 @@ class TestRealVocabularyPR:
         import jax.numpy as jnp
         import numpy as np
 
-        from pslam_tpu.io.synthetic import (
+        from pslam.io.synthetic import (
             ClosedRoom, loop_trajectory, render_sequence,
         )
-        from pslam_tpu.ops.bow import default_vocabulary, score_l1, transform
-        from pslam_tpu.ops.orb import extract_orb
-        from pslam_tpu.utils.config import SlamConfig
+        from pslam.ops.bow import default_vocabulary, score_l1, transform
+        from pslam.ops.orb import extract_orb
+        from pslam.utils.config import SlamConfig
 
         cfg = SlamConfig()
         n = 16

@@ -5,9 +5,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from pslam_tpu.io.synthetic import render_sequence
-from pslam_tpu.pipeline.system import SlamSystem, TrackState
-from pslam_tpu.utils.config import SlamConfig
+from pslam.io.synthetic import render_sequence
+from pslam.pipeline.system import SlamSystem, TrackState
+from pslam.utils.config import SlamConfig
 
 
 @pytest.fixture(scope="module")

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pslam_tpu.geometry import se3_exp
-from pslam_tpu.utils.config import (
+from pslam.geometry import se3_exp
+from pslam.utils.config import (
     Capacities,
     PlaneAssocConfig,
     SlamConfig,
@@ -24,7 +24,7 @@ def _random_pose(rng, rot=0.2, trans=0.3):
 
 class TestPnPRansac:
     def test_recovers_pose_with_outliers(self):
-        from pslam_tpu.solver.pnp import pnp_ransac_2d3d
+        from pslam.solver.pnp import pnp_ransac_2d3d
 
         cfg = SlamConfig()
         cam = cfg.camera
@@ -54,9 +54,9 @@ class TestPnPRansac:
     def test_depth_sparse_branch_selected(self):
         """reloc_bow_step must produce a usable pose when ~80% of matched
         features fall in depth holes (VERDICT r3 item 9 done criterion)."""
-        from pslam_tpu.pipeline.frame_ops import make_frame
-        from pslam_tpu.pipeline.relocalization import reloc_bow_step
-        from pslam_tpu.io.synthetic import render_sequence
+        from pslam.pipeline.frame_ops import make_frame
+        from pslam.pipeline.relocalization import reloc_bow_step
+        from pslam.io.synthetic import render_sequence
 
         cfg = SlamConfig()
         cam, orb = cfg.camera, cfg.orb
@@ -115,8 +115,8 @@ class TestPnPRansac:
 
 class TestLILProbation:
     def test_immature_lils_culled(self):
-        from pslam_tpu.models.map_state import MapState
-        from pslam_tpu.pipeline.line_mapping import cull_lils_by_quality
+        from pslam.models.map_state import MapState
+        from pslam.pipeline.line_mapping import cull_lils_by_quality
 
         cfg = SlamConfig(
             plane_assoc=PlaneAssocConfig(observe_th=3, probation_kfs=2)
@@ -150,8 +150,8 @@ class TestKeyframeCapacity:
         capacity pressure must be handled by SlamSystem._evict_for_capacity
         with full bookkeeping. Fill the table via the system helper and
         check eviction keeps the map valid."""
-        from pslam_tpu.models.map_state import MapState
-        from pslam_tpu.pipeline.system import SlamSystem
+        from pslam.models.map_state import MapState
+        from pslam.pipeline.system import SlamSystem
 
         cfg = SlamConfig(use_bow=False, use_loop_closing=False)
         s = SlamSystem(cfg)
@@ -187,13 +187,13 @@ def _drive(system, grays, depths, n, t0=0.0):
 class TestLocalizationOnly:
     @pytest.fixture(scope="class")
     def seq(self):
-        from pslam_tpu.io.synthetic import render_sequence
+        from pslam.io.synthetic import render_sequence
 
         cfg = SlamConfig()
         return render_sequence(cfg.camera, n_frames=70, seed=2)
 
     def test_freezes_backend_and_recovers(self, seq):
-        from pslam_tpu.pipeline.system import SlamSystem, TrackState
+        from pslam.pipeline.system import SlamSystem, TrackState
 
         grays, depths, poses_gt = seq
         cfg = SlamConfig()
@@ -237,9 +237,9 @@ class TestPipelinedTracking:
         """track_rgbd_pipelined (depth-1 overlap) produces the same
         trajectory quality as the synchronous path and records every
         frame."""
-        from pslam_tpu.io.synthetic import render_sequence
-        from pslam_tpu.pipeline.system import SlamSystem, TrackState
-        from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+        from pslam.io.synthetic import render_sequence
+        from pslam.pipeline.system import SlamSystem, TrackState
+        from pslam.utils.metrics import ate_rmse, trajectory_positions
 
         cfg = SlamConfig()
         n = 20
@@ -266,8 +266,8 @@ class TestPipelinedTracking:
         assert ate_p < max(2.5 * ate_s, 0.03)
 
     def test_mixed_mode_drains(self):
-        from pslam_tpu.io.synthetic import render_sequence
-        from pslam_tpu.pipeline.system import SlamSystem
+        from pslam.io.synthetic import render_sequence
+        from pslam.pipeline.system import SlamSystem
 
         cfg = SlamConfig(use_lines=False, use_bow=False,
                          use_loop_closing=False)
@@ -289,9 +289,9 @@ class TestMonocular:
     def test_mono_init_and_tracking(self):
         """Minimal monocular pipeline (VERDICT r3 item 10): H/F two-view
         init + depthless tracking; ATE evaluated up to scale (mono gauge)."""
-        from pslam_tpu.io.synthetic import render_sequence
-        from pslam_tpu.pipeline.system import SlamSystem, TrackState
-        from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+        from pslam.io.synthetic import render_sequence
+        from pslam.pipeline.system import SlamSystem, TrackState
+        from pslam.utils.metrics import ate_rmse, trajectory_positions
 
         cfg = SlamConfig(use_lines=False, use_loop_closing=False)
         n = 14
@@ -319,9 +319,9 @@ class TestLineThresholdSensitivity:
         collapse match count or correctness on a ground-truthed pair."""
         import jax.numpy as jnp
 
-        from pslam_tpu.io.synthetic import render_sequence
-        from pslam_tpu.ops.line_match import DESC_TH, match_lines_f2f
-        from pslam_tpu.pipeline.frame_ops import make_frame_lines
+        from pslam.io.synthetic import render_sequence
+        from pslam.ops.line_match import DESC_TH, match_lines_f2f
+        from pslam.pipeline.frame_ops import make_frame_lines
 
         cfg = SlamConfig()
         cam = cfg.camera

@@ -4,7 +4,7 @@ double-bind guards, KF-capacity backstop), bf16 FAST flip rate."""
 import numpy as np
 import pytest
 
-from pslam_tpu.utils.config import Capacities, SlamConfig
+from pslam.utils.config import Capacities, SlamConfig
 
 
 def _mini_cfg(**kw):
@@ -24,7 +24,7 @@ class TestGenerationGuards:
         """A culled + reallocated map-point slot must carry a new generation
         so stale snapshot consumers can detect the swap (ADVICE r4 medium:
         mp_valid alone marks a recycled slot as live again)."""
-        from pslam_tpu.models.map_state import MapState
+        from pslam.models.map_state import MapState
 
         cfg = _mini_cfg()
         m = MapState(cfg)
@@ -50,8 +50,8 @@ class TestGenerationGuards:
     def test_materialize_masks_recycled_slot(self):
         """_materialize_host_frame must not bind a feature to a slot whose
         landmark was culled and replaced after the snapshot was taken."""
-        from pslam_tpu.models.map_state import MapState
-        from pslam_tpu.pipeline.system import HostFrame, SlamSystem
+        from pslam.models.map_state import MapState
+        from pslam.pipeline.system import HostFrame, SlamSystem
 
         cfg = _mini_cfg()
         s = SlamSystem(cfg)
@@ -112,8 +112,8 @@ class TestFuseDoubleBind:
     def test_apply_fuse_skips_already_observed(self):
         """_apply_fuse must not bind a point to a second feature slot of the
         same KF when an earlier replace made the KF observe it (ADVICE r4)."""
-        from pslam_tpu.models.map_state import MapState
-        from pslam_tpu.pipeline.local_mapping import _apply_fuse
+        from pslam.models.map_state import MapState
+        from pslam.pipeline.local_mapping import _apply_fuse
 
         cfg = _mini_cfg()
         m = MapState(cfg)
@@ -151,7 +151,7 @@ class TestKfCapacityBackstop:
     def test_map_level_backstop_raises(self):
         """MapState.add_keyframe must refuse to evict silently when full
         (ADVICE r4: eviction needs system-level bookkeeping)."""
-        from pslam_tpu.models.map_state import MapState
+        from pslam.models.map_state import MapState
 
         cfg = _mini_cfg()
         m = MapState(cfg)
@@ -180,10 +180,10 @@ class TestStereo:
         for most features (sub-pixel SAD disparity)."""
         import jax.numpy as jnp
 
-        from pslam_tpu.io.synthetic import BoxRoom, render_sequence, \
+        from pslam.io.synthetic import BoxRoom, render_sequence, \
             render_stereo_sequence
-        from pslam_tpu.pipeline.frame_ops import make_frame_stereo
-        from pslam_tpu.utils.config import SlamConfig
+        from pslam.pipeline.frame_ops import make_frame_stereo
+        from pslam.utils.config import SlamConfig
 
         cfg = SlamConfig(sensor="stereo", use_lines=False, use_lils=False,
                          use_bow=False, use_loop_closing=False)
@@ -210,10 +210,10 @@ class TestStereo:
         assert (rel < 0.05).mean() > 0.75, (rel < 0.05).mean()
 
     def test_stereo_end_to_end_ate(self):
-        from pslam_tpu.io.synthetic import render_stereo_sequence
-        from pslam_tpu.pipeline.system import SlamSystem, TrackState
-        from pslam_tpu.utils.config import SlamConfig
-        from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+        from pslam.io.synthetic import render_stereo_sequence
+        from pslam.pipeline.system import SlamSystem, TrackState
+        from pslam.utils.config import SlamConfig
+        from pslam.utils.metrics import ate_rmse, trajectory_positions
 
         cfg = SlamConfig(sensor="stereo", use_lines=False, use_lils=False,
                          use_bow=False, use_loop_closing=False)
@@ -228,7 +228,7 @@ class TestStereo:
         assert ate < 0.06, f"stereo ATE {ate:.4f} m"
 
     def test_stereo_requires_no_lines(self):
-        from pslam_tpu.utils.config import SlamConfig
+        from pslam.utils.config import SlamConfig
 
         with pytest.raises(ValueError, match="stereo"):
             SlamConfig(sensor="stereo", use_lines=True)
@@ -243,9 +243,9 @@ class TestVisualOdometryMode:
     def test_vo_survives_leaving_map_and_relocalizes(self):
         import numpy as np
 
-        from pslam_tpu.io.synthetic import ClosedRoom, render_sequence
-        from pslam_tpu.pipeline.system import SlamSystem, TrackState
-        from pslam_tpu.utils.config import SlamConfig
+        from pslam.io.synthetic import ClosedRoom, render_sequence
+        from pslam.pipeline.system import SlamSystem, TrackState
+        from pslam.utils.config import SlamConfig
 
         cfg = SlamConfig(use_lines=False, use_lils=False)
         cam = cfg.camera
@@ -297,7 +297,7 @@ def test_fast_bf16_flip_rate():
     level-0 pixels)."""
     import jax.numpy as jnp
 
-    from pslam_tpu.ops.fast import fast_score_dual
+    from pslam.ops.fast import fast_score_dual
 
     rng = np.random.default_rng(0)
     img = rng.uniform(0, 255, (1, 256, 256)).astype(np.float32)
@@ -311,7 +311,7 @@ def test_fast_bf16_flip_rate():
     # Reference f32 path: emulate by pre-rounding to bf16 on host and
     # comparing decisions (the jitted kernel always casts to bf16; the f32
     # "truth" is computed here in numpy).
-    from pslam_tpu.ops.fast import CIRCLE
+    from pslam.ops.fast import CIRCLE
 
     def fast_np(a, th):
         masks_b = np.zeros(a.shape, np.int32)

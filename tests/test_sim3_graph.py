@@ -5,16 +5,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pslam_tpu.geometry import se3_exp
-from pslam_tpu.geometry.camera import Camera, project
-from pslam_tpu.geometry.lie import (
+from pslam.geometry import se3_exp
+from pslam.geometry.camera import Camera, project
+from pslam.geometry.lie import (
     Sim3,
     sim3_compose,
     sim3_exp,
     sim3_inverse,
     sim3_log,
 )
-from pslam_tpu.solver.sim3_graph import (
+from pslam.solver.sim3_graph import (
     PoseGraphProblem,
     optimize_essential_graph,
     optimize_sim3,

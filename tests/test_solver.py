@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pslam_tpu import geometry as geo
-from pslam_tpu.solver import (
+from pslam import geometry as geo
+from pslam.solver import (
     BAProblem,
     PoseObs,
     local_bundle_adjustment,
@@ -188,7 +188,7 @@ class TestLocalBA:
             lambda p: local_bundle_adjustment(CAM, p, n_free), static_argnums=()
         )
         T_opt, X_opt, inlier, chi2 = f(prob)
-        from pslam_tpu.solver.local_ba import _edge_terms
+        from pslam.solver.local_ba import _edge_terms
 
         *_, cost0 = _edge_terms(
             CAM, prob, prob.T_cw, prob.X_w, prob.edge_valid, False

@@ -6,14 +6,14 @@ import os
 import numpy as np
 import pytest
 
-from pslam_tpu.io.synthetic import render_sequence
-from pslam_tpu.io.tum import (
+from pslam.io.synthetic import render_sequence
+from pslam.io.tum import (
     TumRgbdDataset,
     config_from_settings,
     load_rgb_gray,
     load_settings_yaml,
 )
-from pslam_tpu.utils.config import SlamConfig
+from pslam.utils.config import SlamConfig
 
 SETTINGS = """\
 %YAML:1.0
@@ -124,7 +124,7 @@ def test_rgb_gray_luma(tmp_path):
 def test_rgbd_tum_app(tiny_dataset, tmp_path, monkeypatch):
     root, _, _ = tiny_dataset
     monkeypatch.chdir(tmp_path)
-    from pslam_tpu.apps.rgbd_tum import main
+    from pslam.apps.rgbd_tum import main
 
     rc = main([
         str(root / "settings.yaml"), str(root), str(root / "assoc.txt"),
@@ -149,7 +149,7 @@ def test_rgbd_tum_app_distorted_ate(tmp_path, monkeypatch):
     save — gated on ATE against ground truth."""
     from PIL import Image
 
-    from pslam_tpu.utils.metrics import ate_rmse, trajectory_positions
+    from pslam.utils.metrics import ate_rmse, trajectory_positions
 
     settings_path = tmp_path / "settings.yaml"
     settings_path.write_text(SETTINGS)
@@ -180,7 +180,7 @@ def test_rgbd_tum_app_distorted_ate(tmp_path, monkeypatch):
     (root / "assoc.txt").write_text("\n".join(rows) + "\n")
 
     monkeypatch.chdir(tmp_path)
-    from pslam_tpu.apps.rgbd_tum import main
+    from pslam.apps.rgbd_tum import main
 
     rc = main([
         str(settings_path), str(root), str(root / "assoc.txt"), "dist",
